@@ -1,7 +1,7 @@
-"""TPU-native GNSS software-defined receiver framework.
+"""GNSS software-defined receiver framework in JAX.
 
 A from-scratch reimplementation of the capabilities of GNSS-SDR
-(reference: /root/reference, v0.0.17 fork) designed TPU-first:
+(reference: GNSS-SDR v0.0.17 fork) built as accelerator array programs:
 
 - The signal-processing plane (acquisition, tracking, conditioning) is a set
   of pure, ``jit``-compiled JAX array programs. Channels (satellite PRN x

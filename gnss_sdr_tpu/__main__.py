@@ -44,6 +44,10 @@ def main(argv=None) -> int:
     global last_receiver
     args = build_parser().parse_args(argv)
 
+    from gnss_sdr_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from gnss_sdr_tpu.config import FileConfiguration
     from gnss_sdr_tpu.monitor import KmlWriter, nmea_gga
     from gnss_sdr_tpu.receiver.factory import (_configured_suffixes,

@@ -1,7 +1,7 @@
 """Acquisition engines (reference layer L4, acquisition role).
 
 The PCPS engine is one batched array program over the whole
-(PRN x Doppler-bin) search grid — the TPU-native collapse of the
+(PRN x Doppler-bin) search grid — the array-program collapse of the
 reference's per-channel serial Doppler loop + optional CUDA/OpenCL/FPGA
 offload variants (SURVEY.md section 2.5).
 """

@@ -1,6 +1,6 @@
 """Batched PCPS (Parallel Code Phase Search) acquisition.
 
-TPU-native redesign of the reference engine
+Array-program redesign of the reference engine
 (/root/reference/src/algorithms/acquisition/gnuradio_blocks/
 pcps_acquisition.cc): where the reference runs a serial per-Doppler-bin loop
 inside one per-channel worker thread (acquisition_core, :615-771), here the
@@ -28,9 +28,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from scipy import special as sp_special
-
-from gnss_sdr_tpu.ops.cplx import cmul
-from gnss_sdr_tpu.ops.fft import FftPlan, fft_planar, ifft_planar, plan_fft
 
 
 @dataclasses.dataclass
@@ -152,8 +149,20 @@ class AcqResult:
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("plan", "offset", "eff"))
+def wipeoff_spectra(x_re: jax.Array, x_im: jax.Array, dopplers: jax.Array,
+                    fs: jax.Array) -> jax.Array:
+    """FFT(x . e^{-j 2 pi f_d n / fs}) per Doppler bin: [D, N] complex64.
+
+    Shared by the PCPS grid and its variants (acquisition/variants.py).
+    """
+    n = jnp.arange(x_re.shape[-1], dtype=jnp.float32)
+    phase = (-2.0 * jnp.pi / fs) * dopplers[:, None] * n[None, :]
+    x = jax.lax.complex(x_re, x_im)
+    return jnp.fft.fft(x * jax.lax.complex(jnp.cos(phase), jnp.sin(phase)),
+                       axis=-1)
+
+
+@functools.partial(jax.jit, static_argnames=("offset", "eff"))
 def _pcps_magnitude_grid(
     x_re: jax.Array,        # [N] float32, zero-padded to fft_size
     x_im: jax.Array,        # [N] float32
@@ -161,29 +170,37 @@ def _pcps_magnitude_grid(
     code_fft_im: jax.Array,  # [P, N] float32
     dopplers: jax.Array,    # [D] float32
     fs: jax.Array,          # scalar float32
-    plan: FftPlan,
     offset: int,
     eff: int,
 ) -> jax.Array:
     """|IFFT(FFT(x . wipeoff) . conj(FFT(code)))|^2 for all (PRN, Doppler).
 
-    One fused batched program over the whole search grid — planar complex
-    (no complex dtype touches the device) with matmul-based FFTs, replacing
-    the reference's serial per-Doppler-bin FFTW loop
-    (pcps_acquisition.cc:655-687).
+    One fused batched program over the whole search grid, replacing the
+    reference's serial per-Doppler-bin FFTW loop
+    (pcps_acquisition.cc:655-687). Inputs and outputs are planar float32;
+    the transforms run in complex64 (cuFFT on a GPU).
     """
-    n = jnp.arange(x_re.shape[0], dtype=jnp.float32)
-    phase = (-2.0 * jnp.pi / fs) * dopplers[:, None] * n[None, :]
-    c, s = jnp.cos(phase), jnp.sin(phase)
-    wipe = (x_re[None, :] * c - x_im[None, :] * s,
-            x_re[None, :] * s + x_im[None, :] * c)
-    spectra = fft_planar(plan, wipe)                          # [D, N]
-    prod = cmul((spectra[0][None, :, :], spectra[1][None, :, :]),
-                (code_fft_re[:, None, :], code_fft_im[:, None, :]))
-    corr = ifft_planar(plan, prod)                            # [P, D, N]
-    cr = corr[0][..., offset:offset + eff]
-    ci = corr[1][..., offset:offset + eff]
-    return (cr * cr + ci * ci).astype(jnp.float32)
+    spectra = wipeoff_spectra(x_re, x_im, dopplers, fs)          # [D, N]
+    code = jax.lax.complex(code_fft_re, code_fft_im)              # [P, N]
+    corr = jnp.fft.ifft(spectra[None, :, :] * code[:, None, :], axis=-1)
+    corr = corr[..., offset:offset + eff]                        # [P, D, eff]
+    return corr.real * corr.real + corr.imag * corr.imag
+
+
+def magnitude_grid_reference(x: np.ndarray, code_fft: np.ndarray,
+                             dopplers: np.ndarray, fs: float, offset: int,
+                             eff: int) -> np.ndarray:
+    """Plain float64 NumPy counterpart of :func:`_pcps_magnitude_grid`
+    (``x`` [N] and ``code_fft`` [P, N] complex): the reference the device
+    grid is checked against."""
+    x = np.asarray(x, dtype=np.complex128)
+    n = np.arange(x.shape[-1], dtype=np.float64)
+    wipe = np.exp(-2j * np.pi * np.asarray(dopplers, np.float64)[:, None]
+                  * n[None, :] / fs)
+    spectra = np.fft.fft(x[None, :] * wipe, axis=-1)
+    corr = np.fft.ifft(spectra[None] * np.asarray(code_fft, np.complex128)
+                       [:, None, :], axis=-1)[..., offset:offset + eff]
+    return corr.real ** 2 + corr.imag ** 2
 
 
 @functools.partial(jax.jit, static_argnames=("num_dwells",))
@@ -273,7 +290,6 @@ class PcpsAcquisition:
             np.ascontiguousarray(code_ffts.real, dtype=np.float32))
         self._code_fft_im = jnp.asarray(
             np.ascontiguousarray(code_ffts.imag, dtype=np.float32))
-        self._plan = plan_fft(fft_size)
         self._dopplers = jnp.asarray(cfg.doppler_grid())
         self._fs = jnp.float32(cfg.fs)
         self._offset = cfg.effective_fft_size if cfg.bit_transition_flag else 0
@@ -294,7 +310,7 @@ class PcpsAcquisition:
     def _grid(self, x, dopplers: jnp.ndarray) -> jnp.ndarray:
         return _pcps_magnitude_grid(
             x[0], x[1], self._code_fft_re, self._code_fft_im, dopplers,
-            self._fs, plan=self._plan, offset=self._offset, eff=self._eff,
+            self._fs, offset=self._offset, eff=self._eff,
         )
 
     def _evaluate(
@@ -414,7 +430,7 @@ class PcpsAcquisition:
             x = self._prepare_buffer(samples, dwell)
             g = _pcps_magnitude_grid(
                 x[0], x[1], cf_re, cf_im, jnp.asarray(dopplers2), self._fs,
-                plan=self._plan, offset=self._offset, eff=self._eff,
+                offset=self._offset, eff=self._eff,
             )
             grid_sum = g if grid_sum is None else grid_sum + g
 

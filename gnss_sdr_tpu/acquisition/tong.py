@@ -10,7 +10,7 @@ accumulated per Doppler bin, and a counting detector walks up on
 ``tong_max_dwells`` cap forcing a negative (:352-371). Default knobs
 follow the adapter (gps_l1_ca_pcps_tong_acquisition.cc:66-68).
 
-TPU mapping: all PRNs share one batched grid program per dwell (the
+Device mapping: all PRNs share one batched grid program per dwell (the
 reference runs one satellite per block instance); the per-PRN Tong
 counters are scalar host state. The accumulated grid stays on device
 between dwells.

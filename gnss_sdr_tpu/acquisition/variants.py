@@ -6,13 +6,11 @@ pcps_quicksync_acquisition_cc.cc — S-fold the signal to shorten the FFT —
 and pcps_cccwsr_acquisition_cc.cc — Coherent Channel Combining With Sign
 Recovery for BOC-ambiguous pilot+data signals like Galileo E1).
 
-Both reuse the batched planar-FFT grid machinery of the PCPS engine: the
-whole (PRN x Doppler x code-phase) search stays one jitted array program.
+Both reuse the batched FFT grid machinery of the PCPS engine: the whole
+(PRN x Doppler x code-phase) search stays one jitted array program.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,9 +18,7 @@ import numpy as np
 
 from gnss_sdr_tpu.acquisition.pcps import (
     AcqConfig, AcqResult, PcpsAcquisition, _cfar_statistics,
-    _second_peak_statistics)
-from gnss_sdr_tpu.ops.cplx import cmul
-from gnss_sdr_tpu.ops.fft import fft_planar, ifft_planar, plan_fft
+    _second_peak_statistics, wipeoff_spectra)
 
 
 # ---------------------------------------------------------------------------
@@ -30,8 +26,8 @@ from gnss_sdr_tpu.ops.fft import fft_planar, ifft_planar, plan_fft
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(jax.jit, static_argnames=("plan",))
-def _folded_grid(x_re, x_im, code_fft_re, code_fft_im, dopplers, fs, plan):
+@jax.jit
+def _folded_grid(x_re, x_im, code_fft_re, code_fft_im, dopplers, fs):
     """|IFFT(FFT(fold(x . wipeoff)) . conj(FFT(folded code)))|^2.
 
     x is [S, N/S] pre-split; folding sums the S segments after carrier
@@ -41,14 +37,13 @@ def _folded_grid(x_re, x_im, code_fft_re, code_fft_im, dopplers, fs, plan):
     s, nf = x_re.shape
     n = jnp.arange(s * nf, dtype=jnp.float32).reshape(s, nf)
     phase = (-2.0 * jnp.pi / fs) * dopplers[:, None, None] * n[None, :, :]
-    c, sn = jnp.cos(phase), jnp.sin(phase)
-    wr = jnp.sum(x_re[None] * c - x_im[None] * sn, axis=1)   # [D, N/S]
-    wi = jnp.sum(x_re[None] * sn + x_im[None] * c, axis=1)
-    spectra = fft_planar(plan, (wr, wi))
-    prod = cmul((spectra[0][None], spectra[1][None]),
-                (code_fft_re[:, None], code_fft_im[:, None]))
-    corr = ifft_planar(plan, prod)                            # [P, D, N/S]
-    return (corr[0] ** 2 + corr[1] ** 2).astype(jnp.float32)
+    x = jax.lax.complex(x_re, x_im)[None]
+    folded = jnp.sum(x * jax.lax.complex(jnp.cos(phase), jnp.sin(phase)),
+                     axis=1)                                  # [D, N/S]
+    spectra = jnp.fft.fft(folded, axis=-1)
+    code = jax.lax.complex(code_fft_re, code_fft_im)
+    corr = jnp.fft.ifft(spectra[None] * code[:, None], axis=-1)  # [P, D, N/S]
+    return corr.real ** 2 + corr.imag ** 2
 
 
 class QuickSyncAcquisition:
@@ -78,7 +73,6 @@ class QuickSyncAcquisition:
         code_ffts = np.conj(np.fft.fft(folded, axis=-1))
         self._cf_re = jnp.asarray(code_ffts.real.astype(np.float32))
         self._cf_im = jnp.asarray(code_ffts.imag.astype(np.float32))
-        self._plan = plan_fft(self.n_folded)
         self._dopplers = jnp.asarray(cfg.doppler_grid())
         self._fs = jnp.float32(cfg.fs)
 
@@ -93,7 +87,7 @@ class QuickSyncAcquisition:
         grid = _folded_grid(
             jnp.asarray(xs.real.astype(np.float32)),
             jnp.asarray(xs.imag.astype(np.float32)),
-            self._cf_re, self._cf_im, self._dopplers, self._fs, self._plan)
+            self._cf_re, self._cf_im, self._dopplers, self._fs)
         if cfg.use_cfar:
             stat, i_dop, i_time = _cfar_statistics(grid, 1)
         else:
@@ -131,28 +125,20 @@ class QuickSyncAcquisition:
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(jax.jit, static_argnames=("plan",))
-def _cccwsr_grid(x_re, x_im, cb_re, cb_im, cc_re, cc_im, dopplers, fs, plan):
+@jax.jit
+def _cccwsr_grid(x_re, x_im, cb_re, cb_im, cc_re, cc_im, dopplers, fs):
     """max(|corr_B + corr_C|^2, |corr_B - corr_C|^2) over the grid.
 
     The relative sign between the E1-B data chip and the E1-C secondary
     chip is unknown at acquisition; testing both signs recovers the full
     coherent gain of the two-channel combination
     (pcps_cccwsr_acquisition_cc.cc core idea)."""
-    n = jnp.arange(x_re.shape[0], dtype=jnp.float32)
-    phase = (-2.0 * jnp.pi / fs) * dopplers[:, None] * n[None, :]
-    c, s = jnp.cos(phase), jnp.sin(phase)
-    wipe = (x_re[None, :] * c - x_im[None, :] * s,
-            x_re[None, :] * s + x_im[None, :] * c)
-    spectra = fft_planar(plan, wipe)                          # [D, N]
-    sp = (spectra[0][None], spectra[1][None])
-    pb = cmul(sp, (cb_re[:, None], cb_im[:, None]))
-    pc = cmul(sp, (cc_re[:, None], cc_im[:, None]))
-    yb = ifft_planar(plan, pb)                                # [P, D, N]
-    yc = ifft_planar(plan, pc)
-    plus = (yb[0] + yc[0]) ** 2 + (yb[1] + yc[1]) ** 2
-    minus = (yb[0] - yc[0]) ** 2 + (yb[1] - yc[1]) ** 2
-    return jnp.maximum(plus, minus).astype(jnp.float32)
+    sp = wipeoff_spectra(x_re, x_im, dopplers, fs)[None]      # [1, D, N]
+    yb = jnp.fft.ifft(sp * jax.lax.complex(cb_re, cb_im)[:, None], axis=-1)
+    yc = jnp.fft.ifft(sp * jax.lax.complex(cc_re, cc_im)[:, None], axis=-1)
+    plus, minus = yb + yc, yb - yc                            # [P, D, N]
+    return jnp.maximum(plus.real ** 2 + plus.imag ** 2,
+                       minus.real ** 2 + minus.imag ** 2)
 
 
 class CccwsrAcquisition:
@@ -176,7 +162,6 @@ class CccwsrAcquisition:
                     jnp.asarray(cfb.imag.astype(np.float32)))
         self._cc = (jnp.asarray(cfc.real.astype(np.float32)),
                     jnp.asarray(cfc.imag.astype(np.float32)))
-        self._plan = plan_fft(n)
         self._dopplers = jnp.asarray(cfg.doppler_grid())
         self._fs = jnp.float32(cfg.fs)
 
@@ -191,7 +176,7 @@ class CccwsrAcquisition:
             jnp.asarray(seg.real.astype(np.float32)),
             jnp.asarray(seg.imag.astype(np.float32)),
             self._cb[0], self._cb[1], self._cc[0], self._cc[1],
-            self._dopplers, self._fs, self._plan)
+            self._dopplers, self._fs)
         if cfg.use_cfar:
             stat, i_dop, i_time = _cfar_statistics(grid, 1)
         else:

@@ -11,18 +11,20 @@ them)."""
 
 from __future__ import annotations
 
+import functools
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 
 def beamform(x_re, x_im, w_re, w_im):
     """[M, N] planar antenna channels x [M] complex weights -> [N]."""
-    y_re = jnp.einsum("mn,m->n", x_re, w_re) - jnp.einsum(
-        "mn,m->n", x_im, w_im)
-    y_im = jnp.einsum("mn,m->n", x_re, w_im) + jnp.einsum(
-        "mn,m->n", x_im, w_re)
+    comb = functools.partial(jnp.einsum, "mn,m->n",
+                             precision=jax.lax.Precision.HIGHEST)
+    y_re = comb(x_re, w_re) - comb(x_im, w_im)
+    y_im = comb(x_re, w_im) + comb(x_im, w_re)
     return y_re, y_im
 
 

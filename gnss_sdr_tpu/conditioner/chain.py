@@ -8,7 +8,7 @@ input-filter adapters (fir_filter.cc, freq_xlating_fir_filter.cc,
 pulse_blanking_filter.cc, notch_filter.cc) and resamplers
 (direct_resampler_conditioner.cc, mmse_resampler_conditioner.cc).
 
-TPU-first shape: the whole chain is one pure function over the capture
+Array-program shape: the whole chain is one pure function over the capture
 (or a carried-tail streaming step), so XLA fuses translate+filter+
 decimate into a single device program instead of three GNU Radio blocks
 with ring buffers.

@@ -10,6 +10,7 @@ complex via convolution.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 from scipy import signal as sp_signal
@@ -33,8 +34,9 @@ def fir_filter(x: Cf, taps: np.ndarray, decimation: int = 1) -> Cf:
     ``decimation``-th output (gr FIR decimator semantics).
     """
     t = jnp.asarray(taps, dtype=jnp.float32)
-    xr = jnp.convolve(x[0], t, mode="full")[: x[0].shape[0]]
-    xi = jnp.convolve(x[1], t, mode="full")[: x[1].shape[0]]
+    hi = jax.lax.Precision.HIGHEST
+    xr = jnp.convolve(x[0], t, mode="full", precision=hi)[: x[0].shape[0]]
+    xi = jnp.convolve(x[1], t, mode="full", precision=hi)[: x[1].shape[0]]
     if decimation > 1:
         xr = xr[::decimation]
         xi = xi[::decimation]

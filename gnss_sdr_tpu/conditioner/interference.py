@@ -9,17 +9,17 @@ pulse_blanking_cc.cc and notch_cc.cc / notch_lite_cc.cc):
   pfa-threshold-over-segments scheme reduced to its array form).
 - :func:`notch_filter_block` removes narrowband (CW) interference. The
   reference runs an adaptive time-domain IIR notch steered by a
-  frequency estimator; here the TPU-native equivalent is frequency-domain
-  excision: FFT the block, clamp bins whose magnitude exceeds
-  ``k x median``, IFFT. Same capability, compiler-friendly shape.
+  frequency estimator; here the array-program equivalent is
+  frequency-domain excision: FFT the block, clamp bins whose magnitude
+  exceeds ``k x median``, IFFT. Same capability, compiler-friendly shape.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from gnss_sdr_tpu.ops.cplx import Cf
-from gnss_sdr_tpu.ops.fft import fft_planar, ifft_planar, plan_fft
 
 
 def pulse_blanking(x: Cf, threshold_sigma: float = 4.0) -> Cf:
@@ -37,11 +37,9 @@ def notch_filter_block(x: Cf, excision_factor: float = 8.0) -> Cf:
     (CW interference concentrates in few bins; GNSS signal power is ~20 dB
     below the noise floor and untouched).
     """
-    n = x[0].shape[-1]
-    plan = plan_fft(n)
-    spec = fft_planar(plan, x)
-    mag = jnp.sqrt(spec[0] ** 2 + spec[1] ** 2)
+    spec = jnp.fft.fft(jax.lax.complex(x[0], x[1]), axis=-1)
+    mag = jnp.abs(spec)
     med = jnp.median(mag, axis=-1, keepdims=True)
-    keep = mag <= excision_factor * med
-    spec = (jnp.where(keep, spec[0], 0.0), jnp.where(keep, spec[1], 0.0))
-    return ifft_planar(plan, spec)
+    out = jnp.fft.ifft(jnp.where(mag <= excision_factor * med, spec, 0.0),
+                       axis=-1)
+    return (out.real, out.imag)

@@ -14,7 +14,6 @@ from gnss_sdr_tpu.monitor.geo_writers import (
     KmlWriter,
 )
 from gnss_sdr_tpu.monitor.nmea import nmea_gga, nmea_rmc, nmea_sentence
-from gnss_sdr_tpu.monitor.udp_monitor import UdpMonitor
 
 __all__ = [
     "TrackingDump",
@@ -26,3 +25,13 @@ __all__ = [
     "nmea_sentence",
     "UdpMonitor",
 ]
+
+
+def __getattr__(name):
+    # the UDP monitors need protobuf, which only monitored deployments
+    # install: import them on first use, not with the package
+    if name == "UdpMonitor":
+        from gnss_sdr_tpu.monitor.udp_monitor import UdpMonitor
+
+        return UdpMonitor
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

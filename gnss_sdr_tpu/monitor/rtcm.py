@@ -17,7 +17,7 @@ Implemented messages (RTCM STANDARD 10403.2 layouts):
   satellite/signal/cell masks and fine range/phase/CNR cells.
 
 Everything is pure-Python bit packing on the host — RTCM output is an
-observability stream (bytes/s), far off the TPU hot path.
+observability stream (bytes/s), far off the device hot path.
 """
 
 from __future__ import annotations

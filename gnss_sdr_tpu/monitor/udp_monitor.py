@@ -19,9 +19,15 @@ import json
 import math
 import socket
 
-from gnss_sdr_tpu.monitor.proto import (
-    galileo_ephemeris_pb2, gnss_synchro_pb2, gps_ephemeris_pb2,
-    monitor_pvt_pb2, nav_message_pb2)
+try:
+    from gnss_sdr_tpu.monitor.proto import (
+        galileo_ephemeris_pb2, gnss_synchro_pb2, gps_ephemeris_pb2,
+        monitor_pvt_pb2, nav_message_pb2)
+except ImportError as exc:
+    raise ImportError(
+        "the UDP monitors need the 'protobuf' package: install the "
+        "'monitor' extra (pip install 'gnss-sdr-tpu[monitor]') or disable "
+        "the *.enable_monitor keys") from exc
 
 
 def synchro_to_proto(s) -> gnss_synchro_pb2.GnssSynchro:

@@ -16,8 +16,6 @@ ephemeris, each decoded nav page).
 
 from __future__ import annotations
 
-from gnss_sdr_tpu.monitor.udp_monitor import UdpMonitor
-
 
 def _addresses(raw: str) -> list[str]:
     return [a for a in raw.replace("_", ",").split(",") if a]
@@ -27,6 +25,9 @@ class _Sink:
     """One monitor group: N client endpoints + a decimation counter."""
 
     def __init__(self, addresses: list[str], port: int, decimation: int):
+        # protobuf is needed only once a monitor group is enabled
+        from gnss_sdr_tpu.monitor.udp_monitor import UdpMonitor
+
         self.monitors = [UdpMonitor(a, port) for a in addresses]
         self.decimation = max(1, int(decimation))
         self._count = 0

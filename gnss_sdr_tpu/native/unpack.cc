@@ -1,7 +1,7 @@
 // Native sample-format converters: interleaved integer IF captures ->
 // planar float32 (re, im) for the device pipeline.
 //
-// TPU-native counterpart of the reference's ingest-side native code: the
+// Host-side counterpart of the reference's ingest-side native code: the
 // VOLK_GNSSSDR type-convert kernels (volk_gnsssdr_8ic_convert_16ic etc.,
 // /root/reference/src/algorithms/libs/volk_gnsssdr_module/) and the
 // unpack_* GNU Radio blocks

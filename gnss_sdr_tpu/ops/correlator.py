@@ -1,6 +1,6 @@
 """Carrier-wipeoff multicorrelator (planar complex).
 
-TPU-native equivalent of the reference's hot tracking loop — the fused
+Array-program equivalent of the reference's hot tracking loop — the fused
 VOLK kernel pair ``volk_gnsssdr_32f_xn_resampler_32f_xn`` (tap-shifted code
 resampling) + ``volk_gnsssdr_32fc_32f_rotator_dot_prod_32fc_xn`` (carrier
 rotator + N dot products), as orchestrated by
@@ -17,8 +17,8 @@ Semantics reproduced exactly:
   (phase_offset conjugate + phase_inc = e^{-j step},
   cpu_multicorrelator_real_codes.cc:113-126).
 
-Complex samples travel as planar (re, im) float32 pairs — the device
-backend has no complex dtype, and planar maps directly onto the VPU. One
+Complex samples travel as planar (re, im) float32 pairs, like the rest
+of the tracking path, so the rotator is plain elementwise float32. One
 call computes all taps of all channels as a batched masked reduction; an
 invalid tail (n >= length) contributes zero, which makes per-channel
 dynamic PRN-period lengths representable with one static shape.
@@ -81,7 +81,7 @@ def multicorrelate(
     # Sample n belongs to chip floor(step*n - rem + shift); since step > 0
     # those chips are a monotone partition: chip c spans samples
     # [ceil((c + rem - shift)/step), ...). One prefix-sum read per chip
-    # boundary replaces the per-sample code gather (the TPU bottleneck),
+    # boundary replaces the per-sample code gather (random loads),
     # and the chip sums contract against the code table. The two spill
     # bins (c = -1 and c = code_len) fold onto the mod-wrapped chips, so
     # results equal the gather formulation bit-for-bit up to f32

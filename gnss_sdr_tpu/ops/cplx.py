@@ -1,8 +1,8 @@
-"""Planar complex arithmetic for the device compute path.
+"""Planar complex values for the device compute path.
 
-The TPU backend in this environment exposes no complex64 support, and on
-TPU hardware XLA lowers complex ops to real pairs anyway — so the whole
-device pipeline carries complex data as explicit (re, im) float32 pairs.
+The tracking path carries complex data as explicit (re, im) float32
+pairs, and the acquisition programs take and return planar arrays at
+their boundaries (they form complex64 only inside, around the FFTs).
 Host code keeps NumPy complex and converts at the boundary.
 
 A "planar complex" value is a 2-tuple ``(re, im)`` of equal-shape float32
@@ -15,40 +15,6 @@ import jax.numpy as jnp
 import numpy as np
 
 Cf = tuple  # (re, im)
-
-
-def cmul(a: Cf, b: Cf) -> Cf:
-    ar, ai = a
-    br, bi = b
-    return (ar * br - ai * bi, ar * bi + ai * br)
-
-
-def cmul_conj(a: Cf, b: Cf) -> Cf:
-    """a * conj(b)."""
-    ar, ai = a
-    br, bi = b
-    return (ar * br + ai * bi, ai * br - ar * bi)
-
-
-def cconj(a: Cf) -> Cf:
-    return (a[0], -a[1])
-
-
-def cadd(a: Cf, b: Cf) -> Cf:
-    return (a[0] + b[0], a[1] + b[1])
-
-
-def cscale(a: Cf, s) -> Cf:
-    return (a[0] * s, a[1] * s)
-
-
-def cabs2(a: Cf):
-    return a[0] * a[0] + a[1] * a[1]
-
-
-def expi(theta) -> Cf:
-    """e^{j theta} as (cos, sin)."""
-    return (jnp.cos(theta), jnp.sin(theta))
 
 
 def from_complex(x: np.ndarray) -> Cf:

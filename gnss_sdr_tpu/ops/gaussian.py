@@ -8,7 +8,7 @@ atan phase discriminator, with optional normal-inverse-Wishart sequential
 estimation of the measurement covariance, bayesian_estimation.cc:88-130;
 adapter defaults at adapters/gps_l1_ca_gaussian_tracking.cc:56-60).
 
-TPU-native shape: an *error-state* filter. The reference keeps the
+Array-program shape: an *error-state* filter. The reference keeps the
 absolute accumulated carrier phase in ``kf_x(0)`` and copies it into the
 NCO remnant each period; unbounded phase is hostile to float32, so here
 the phase state carries only the not-yet-applied correction — the step
@@ -22,8 +22,11 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 TWO_PI = 2.0 * np.pi
 
@@ -133,9 +136,10 @@ def gaussian_step(state: GaussState, phase_err_rad, cn0_db_hz, t: float,
     # existing error itself (rate enters Doppler first). Covariance uses
     # the full F — the phase/Doppler cross terms are what give the filter
     # its frequency-pull.
-    x_pre = jnp.einsum("ij,...j->...i", f, state.x)
+    x_pre = jnp.einsum("ij,...j->...i", f, state.x, precision=_HIGHEST)
     x_pre = x_pre.at[..., 0].set(state.x[..., 0])  # NCO models the rotation
-    p_pre = jnp.einsum("ij,...jk,lk->...il", f, state.p, f) + q
+    p_pre = jnp.einsum("ij,...jk,lk->...il", f, state.p, f,
+                       precision=_HIGHEST) + q
 
     # measurement noise from the current C/N0 estimate (:675-678)
     r = phase_detector_variance(cn0_db_hz, t)

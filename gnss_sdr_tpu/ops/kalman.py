@@ -19,8 +19,11 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 TWO_PI = 2.0 * np.pi
 
@@ -81,8 +84,9 @@ def kf_step(state: KfState, code_err_chips, phase_err_rad, t: float,
     x holds the corrected absolute phases/Doppler."""
     f = jnp.asarray(_transition(cfg, t))
     q = jnp.asarray(_process_noise(cfg, t))
-    x_pred = jnp.einsum("ij,...j->...i", f, state.x)
-    p_pred = jnp.einsum("ij,...jk,lk->...il", f, state.p, f) + q
+    x_pred = jnp.einsum("ij,...j->...i", f, state.x, precision=_HIGHEST)
+    p_pred = jnp.einsum("ij,...jk,lk->...il", f, state.p, f,
+                        precision=_HIGHEST) + q
 
     # H selects code phase and carrier phase; the discriminators ARE the
     # innovations y = z - Hx (they measure error vs the local replica)
@@ -98,10 +102,13 @@ def kf_step(state: KfState, code_err_chips, phase_err_rad, t: float,
         jnp.stack([s[..., 1, 1], -s[..., 0, 1]], axis=-1),
         jnp.stack([-s[..., 1, 0], s[..., 0, 0]], axis=-1),
     ], axis=-2) / det[..., None, None]
-    k = jnp.einsum("...ij,...jk->...ik", ph, inv)   # [..., 4, 2]
-    delta = jnp.einsum("...ij,...j->...i", k, y)    # measurement correction
+    k = jnp.einsum("...ij,...jk->...ik", ph, inv,
+                   precision=_HIGHEST)              # [..., 4, 2]
+    delta = jnp.einsum("...ij,...j->...i", k, y,
+                       precision=_HIGHEST)          # measurement correction
     x_new = x_pred + delta
     kh = jnp.zeros_like(p_pred).at[..., :, 0].set(k[..., :, 0]) \
         .at[..., :, 1].set(k[..., :, 1])
-    p_new = p_pred - jnp.einsum("...ij,...jk->...ik", kh, p_pred)
+    p_new = p_pred - jnp.einsum("...ij,...jk->...ik", kh, p_pred,
+                                precision=_HIGHEST)
     return KfState(x=x_new, p=p_new), delta

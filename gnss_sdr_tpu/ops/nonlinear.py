@@ -6,7 +6,7 @@ Counterparts of the reference's nonlinear tracking library
 — normal-inverse-Wishart sequential covariance estimation, used by the
 Gaussian tracking variant gps_l1_ca_gaussian_tracking).
 
-TPU-native shape: the filters are pure functions over (mean, covariance)
+Array-program shape: the filters are pure functions over (mean, covariance)
 pytrees with user-supplied transition/measurement callables, written in
 jax.numpy so they jit and ``vmap`` over the channel axis — the per-channel
 Armadillo loops of the reference become one batched program.
@@ -14,7 +14,13 @@ Armadillo loops of the reference become one batched program.
 
 from __future__ import annotations
 
+import functools
+
+import jax
 import jax.numpy as jnp
+
+#: full-precision products: a GPU may otherwise run float32 in TF32
+_mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 def _chol_psd(p):
@@ -43,7 +49,7 @@ def cubature_predict(f, x, p, q):
         getattr(f, "vmapped", None)) else f(pts)
     x_pred = jnp.mean(fpts, axis=0)
     d = fpts - x_pred[None, :]
-    p_pred = d.T @ d / fpts.shape[0] + q
+    p_pred = _mm(d.T, d) / fpts.shape[0] + q
     return x_pred, p_pred
 
 
@@ -54,11 +60,11 @@ def cubature_update(h, x_pred, p_pred, z, r):
     z_pred = jnp.mean(zpts, axis=0)
     dz = zpts - z_pred[None, :]
     dx = pts - x_pred[None, :]
-    p_zz = dz.T @ dz / zpts.shape[0] + r
-    p_xz = dx.T @ dz / zpts.shape[0]
+    p_zz = _mm(dz.T, dz) / zpts.shape[0] + r
+    p_xz = _mm(dx.T, dz) / zpts.shape[0]
     k = jnp.linalg.solve(p_zz.T, p_xz.T).T
-    x = x_pred + k @ (jnp.atleast_1d(z) - z_pred)
-    p = p_pred - k @ p_zz @ k.T
+    x = x_pred + _mm(k, jnp.atleast_1d(z) - z_pred)
+    p = p_pred - _mm(_mm(k, p_zz), k.T)
     return x, p
 
 
@@ -86,8 +92,8 @@ class CubatureFilter:
 
 
 def sigma_points(x, p, alpha=1.0, beta=2.0, kappa=0.0):
-    # alpha=1 keeps the sigma weights O(1) — required for float32 on TPU
-    # (the textbook 1e-3 produces +-1e6 weights that cancel catastrophically)
+    # alpha=1 keeps the sigma weights O(1) — required in float32 (the
+    # textbook 1e-3 produces +-1e6 weights that cancel catastrophically)
     """([2n+1, n] points, mean weights, covariance weights)."""
     n = x.shape[-1]
     lam = alpha * alpha * (n + kappa) - n
@@ -105,7 +111,7 @@ def unscented_predict(f, x, p, q, **sp_kw):
     fpts = jnp.stack([f(pt) for pt in pts])
     x_pred = jnp.sum(wm[:, None] * fpts, axis=0)
     d = fpts - x_pred[None, :]
-    p_pred = (wc[:, None] * d).T @ d + q
+    p_pred = _mm((wc[:, None] * d).T, d) + q
     return x_pred, p_pred
 
 
@@ -115,11 +121,11 @@ def unscented_update(h, x_pred, p_pred, z, r, **sp_kw):
     z_pred = jnp.sum(wm[:, None] * zpts, axis=0)
     dz = zpts - z_pred[None, :]
     dx = pts - x_pred[None, :]
-    p_zz = (wc[:, None] * dz).T @ dz + r
-    p_xz = (wc[:, None] * dx).T @ dz
+    p_zz = _mm((wc[:, None] * dz).T, dz) + r
+    p_xz = _mm((wc[:, None] * dx).T, dz)
     k = jnp.linalg.solve(p_zz.T, p_xz.T).T
-    x = x_pred + k @ (jnp.atleast_1d(z) - z_pred)
-    p = p_pred - k @ p_zz @ k.T
+    x = x_pred + _mm(k, jnp.atleast_1d(z) - z_pred)
+    p = p_pred - _mm(_mm(k, p_zz), k.T)
     return x, p
 
 

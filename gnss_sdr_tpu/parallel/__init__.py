@@ -1,4 +1,4 @@
-"""Multi-chip scale-out (SURVEY.md section 2.10 TPU mapping).
+"""Multi-device scale-out (SURVEY.md section 2.10 parallelism mapping).
 
 The channel axis (satellite PRN x signal) is the natural data-parallel
 axis: tracking state and per-channel code tables shard across a

@@ -17,7 +17,7 @@ the receiver is modeled via :mod:`gnss_sdr_tpu.pvt.tides`
 
 Design: a plain dense-EKF in NumPy — the state is tiny (4 + 1 + #sats),
 epochs arrive at 0.1-30 s cadence, so this is host control-plane math
-like the rest of the PVT block; the TPU serves the signal plane.
+like the rest of the PVT block; the accelerator serves the signal plane.
 
 Out of scope (documented divergences): receiver/satellite antenna PCVs
 and phase windup (need ANTEX inputs; the reference skips them too

@@ -14,7 +14,7 @@ Counterparts of the reference adapters
   absolute GNSS time onto sample indices.
 
 All sources deliver numpy complex64 blocks on the host; the receiver
-moves them to the TPU as planar (re, im) float32 — device code never
+moves them to the device as planar (re, im) float32 — device code never
 sees a live socket.
 """
 

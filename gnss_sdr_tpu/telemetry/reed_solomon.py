@@ -1,6 +1,6 @@
 """Reed-Solomon encoder/decoder over GF(2^8) for Galileo HAS and INAV CED.
 
-TPU-native counterpart of the reference's ``ReedSolomon`` class
+Counterpart of the reference's ``ReedSolomon`` class
 (reference: src/core/system_parameters/reed_solomon.h:40-160,
 reed_solomon.cc:26-45 for the E6B parameters and :312-320 for E1B).
 The reference embeds a precomputed 255x32 generator matrix for encoding

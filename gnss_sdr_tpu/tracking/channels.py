@@ -172,8 +172,8 @@ class TrackingChannels:
                            ) -> list[list[PeriodOutput]]:
         """Track ``n_blocks`` consecutive blocks in one device call (the
         engine's superblock program): dispatch latency amortizes across
-        the segment, which is what makes cold-start pull-in real-time on
-        a remote/tunneled accelerator. ``seg`` must hold
+        the segment, which keeps cold-start pull-in from being bound by
+        per-call dispatch and transfer latency. ``seg`` must hold
         ``n_blocks * block_samples + overlap`` samples; ``i8`` optionally
         carries the same span pre-quantized as planar int8 (skips the
         per-call quantization pass AND quarters the upload)."""

@@ -1,1 +1,2 @@
-"""Utilities (reference L11): kernel profiler, receiver checkpointing."""
+"""Utilities (reference L11): kernel profiler, receiver checkpointing,
+compile-cache placement."""

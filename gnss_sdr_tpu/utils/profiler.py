@@ -34,12 +34,10 @@ def profile_acquisition(fft_sizes=(2046, 4000, 8000), n_doppler=41,
     import jax.numpy as jnp
 
     from gnss_sdr_tpu.acquisition.pcps import _pcps_magnitude_grid
-    from gnss_sdr_tpu.ops.fft import plan_fft
 
     rng = np.random.default_rng(0)
     rows = []
     for n in fft_sizes:
-        plan = plan_fft(n)
         x_re = jnp.asarray(rng.standard_normal(n).astype(np.float32))
         x_im = jnp.asarray(rng.standard_normal(n).astype(np.float32))
         cf_re = jnp.asarray(
@@ -49,7 +47,7 @@ def profile_acquisition(fft_sizes=(2046, 4000, 8000), n_doppler=41,
         dop = jnp.linspace(-5000, 5000, n_doppler, dtype=jnp.float32)
         dt = _time(lambda: _pcps_magnitude_grid(
             x_re, x_im, cf_re, cf_im, dop, jnp.float32(4e6),
-            plan=plan, offset=0, eff=n))
+            offset=0, eff=n))
         rows.append(dict(kernel="pcps_grid", fft_size=n, n_prn=n_prn,
                          n_doppler=n_doppler, seconds=dt,
                          grids_per_s=round(1.0 / dt, 2)))

@@ -1,6 +1,9 @@
 """CLI entry point smoke tests (main.cc:66-204 analogue): config load,
 gflags-style overrides, streaming loop, NMEA/KML sinks."""
 
+import os
+import subprocess
+import sys
 import textwrap
 
 import numpy as np
@@ -51,6 +54,36 @@ def test_cli_runs_noise_capture(tmp_path, capsys):
     assert "processed" in err
     # KML closed even with zero fixes
     assert kml.exists() and b"</kml>" in kml.read_bytes()
+
+
+def test_cli_runs_without_protobuf(tmp_path):
+    """protobuf is only needed once a UDP monitor is configured."""
+    conf = _write_fixture(tmp_path)
+    code = ("import sys; sys.modules['google.protobuf'] = None; "
+            "from gnss_sdr_tpu.__main__ import main; "
+            f"sys.exit(main(['-c', {str(conf)!r}]))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [root, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "processed" in proc.stderr
+
+
+def test_udp_monitor_without_protobuf_says_so():
+    code = ("import sys; sys.modules['google.protobuf'] = None\n"
+            "try:\n"
+            "    from gnss_sdr_tpu.monitor import UdpMonitor\n"
+            "except ImportError as exc:\n"
+            "    print(exc)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          env=dict(os.environ, JAX_PLATFORMS="cpu"),
+                          capture_output=True, text=True, timeout=300)
+    assert "'protobuf' package" in proc.stdout, proc.stderr[-2000:]
 
 
 def test_cli_missing_source_is_an_error(tmp_path):

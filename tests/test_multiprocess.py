@@ -2,7 +2,7 @@
 
 Spawns TWO OS processes that form one jax.distributed CPU mesh
 (2 local devices each -> 4 global devices, gloo collectives — the local
-test shape of a TPU pod slice, SURVEY.md section 5.8/7 step 7) and runs:
+test shape of a multi-host deployment, SURVEY.md section 5.8/7 step 7) and runs:
 
 - the tracking block program with the channel axis sharded ACROSS
   processes (per-satellite channel parallelism over hosts),
